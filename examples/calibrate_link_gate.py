@@ -1,4 +1,4 @@
-"""Calibrate the link-validation score gate (VERDICT round-1 weak 6).
+"""Calibrate the link-validation score gate.
 
 The reference gates loop-closure links at occupancy-overlap score
 <= 0.1 (graph_opt.cpp:49), computed as NDT-cell occupancy overlap

@@ -2,7 +2,7 @@
 simulated run, producing trajectory/ATE numbers, a stitched occupancy
 map, and an overview figure.
 
-Run (CPU works fine; TPU if attached):
+Run (CPU works fine; the GPU if present):
     python examples/demo_full_slam.py [outdir]
 """
 

@@ -1,4 +1,4 @@
-"""Descriptor-statistic parity study (VERDICT round-1 item 8).
+"""Descriptor-statistic parity study.
 
 flirtlib's BetaGrid carries hit/miss counts and a variance per bin and
 chi2-compares histograms (flirtlib_ros/src/conversions.cpp:234-258);

@@ -1,5 +1,5 @@
-"""Multi-seed stability of the 570-node offline pipeline (VERDICT r2
-item 1: 'stable across >= 3 seeds').  Same scenario as
+"""Multi-seed stability of the 570-node offline pipeline (stable
+across >= 3 seeds).  Same scenario as
 tests/test_scaling_e2e.py, parametrized by simulator seed.
 
 Usage: python examples/eval_scaling_seeds.py SEED [SEED...]

@@ -1,6 +1,6 @@
 // CARMEN log-format (.clf) parser — native data loader.
 //
-// TPU-native replacement for the reference's dataset path
+// Native replacement for the reference's dataset path
 // (perception_oru LaserBagReader, ndt_graph_offline.cpp:458-479): the
 // host-side IO stays native C++ (like the reference's), producing
 // packed arrays the JAX pipeline consumes zero-copy via ctypes.

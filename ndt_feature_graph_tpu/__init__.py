@@ -1,7 +1,7 @@
-"""ndt_feature_graph_tpu — TPU-native 2D lidar NDT+feature graph-SLAM.
+"""ndt_feature_graph_tpu — 2D lidar NDT+feature graph-SLAM in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-MalcolmMielle/ndt_feature_graph (reference mounted at /root/reference):
+A from-scratch JAX/XLA re-design of the capabilities of
+MalcolmMielle/ndt_feature_graph:
 NDT submap fusion, FLIRT-style features, joint fusion registration,
 pose-graph SLAM with loop closures, relocalization, and multi-chip
 scale-out over a jax.sharding.Mesh.

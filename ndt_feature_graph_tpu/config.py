@@ -102,14 +102,6 @@ class MatcherParams:
     # sandwich H^-1 J H^-1).  Solver safety never rests on this:
     # spd_info_np floors + link_info_eps cap the information.
     cov_scale: float = 0.6
-    use_pallas: bool = False          # fused Pallas pair-derivative kernel
-                                      # (ops/pallas_kernels.py) instead of
-                                      # the XLA-fused analytic path.
-                                      # Measured on TPU v5e (honest
-                                      # readback-forced timing, r3): at
-                                      # PARITY with the XLA path (fgh
-                                      # 0.25 vs 0.23 ms) — keep False, no
-                                      # benefit (pallas_kernels.py).
 
     replace = _replace
 
@@ -198,10 +190,8 @@ class FuserParams:
     # centred on the predicted pose (clamped inside the grid) instead
     # of the whole grid.  A scan only ever touches the sensor disc
     # (~2*sensor_range/resolution + window cells), so the full-map
-    # table mostly holds rows no gather will read — and the table's
-    # VMEM residency is what sets the fleet throughput cliff (measured
-    # round 4: row-gather rate collapses ~10x when the bank spills
-    # past B~8; BENCH_NOTES).  EXACT when the window covers every
+    # table mostly holds rows no gather will read, and its bytes grow
+    # with the fleet batch.  EXACT when the window covers every
     # source cell's (2n+1)^2 neighbourhood, i.e.
     #   gather_window_cells >= 2*(sensor_range/resolution
     #                             + n_neighbours + slack)
@@ -213,17 +203,14 @@ class FuserParams:
     # CELL-RELATIVE means (mean - cell centre, bounded by resolution
     # so bf16 quantization is ~resolution/256 ~ 2 mm at 0.5 m;
     # absolute bf16 means at 100 m coordinates would quantize at
-    # ~0.4 m and are never used).  Halves the table bytes -> doubles
-    # the VMEM-resident fleet batch.  Pair math stays f32 (rows are
-    # upcast after the gather).
+    # ~0.4 m and are never used).  Halves the table bytes.  Pair math
+    # stays f32 (rows are upcast after the gather).
     gather_table_bf16: bool = False
     # Win-BLOCK gather table for the fleet path (requires
     # gather_window_cells > 0): each table row carries a cell's whole
     # (2n+1)^2 neighbourhood, so the per-trial Newton gather issues
-    # ONE row per source cell — the minimum transaction count for the
-    # window association (5x fewer than win-rows; the gather is
-    # row-transaction-bound and is the stage that degrades with fleet
-    # batch size, BENCH_NOTES round 5).  Table is (2n+1)x larger than
+    # ONE row per source cell — the minimum row count for the window
+    # association (5x fewer than win-rows).  Table is (2n+1)x larger than
     # the win-row form; combine with gather_table_bf16 to keep it
     # ~8 MB/stream at the canonical op point.
     gather_block: bool = False
@@ -283,13 +270,8 @@ class GraphParams:
     # the whole node bank.  Results are identical to ungrouped
     # processing (same per-pair math; lanes are independent in the
     # lockstep Newton).  0 = off.  Requires link_batch_size > 0.
-    # MEASURED VERDICT (round 5, BENCH_NOTES): at the 459-node
-    # canonical bank the grouped path runs 37 pairs/s vs 316 for the
-    # plain chunked path — an 8.5x LOSS (chunk fragmentation + per-
-    # chunk sub-bank copies dominate; the plain flat-bank gathers
-    # never collapsed the way the round-4 small-scale extrapolation
-    # predicted).  Keep 0 unless a future shape is genuinely
-    # working-set-bound.
+    # On the GPU this is not measured yet; keep 0 unless a shape is
+    # shown to be working-set-bound.
     link_group_nodes: int = 0
     # incremental edge source between consecutive nodes:
     # "fuse" (fused local pose) or "odom" (raw local odometry) —

@@ -1,6 +1,6 @@
 """Beta-grid descriptor: polar occupancy histogram with hit/miss counts.
 
-TPU-native re-design of flirtlib's BetaGridGenerator
+Batched re-design of flirtlib's BetaGridGenerator
 (flirtlib_ros/src/flirtlib.cpp:53-63; params rho in [0.02, 1.0], 4
 radial x 12 angular bins — flirtlib_utils.h:44-52).  For each interest
 point, scan endpoints inside the (scale-proportional) support count as
@@ -109,10 +109,10 @@ def describe(
     )
 
     # Bin-accumulate as batched one-hot contractions instead of
-    # scatter-adds: TPU scatters serialize (~measured 5 ms for 35k
-    # updates), while a (F, B[*K]) x (F, B[*K], nbins) contraction is
-    # an MXU-shaped batched GEMV over at most F*B*K*nbins = ~9M MACs —
-    # the canonical scatter-as-matmul trick for small bin counts.
+    # scatter-adds: a (F, B[*K]) x (F, B[*K], nbins) contraction is a
+    # batched GEMV over at most F*B*K*nbins = ~9M MACs with a fixed
+    # summation order — the scatter-as-matmul trick for small bin
+    # counts.  The one-hot operand is exact in any matmul precision.
     bins_iota = jnp.arange(nbins, dtype=jnp.int32)
     h_onehot = (hbin[..., None] == bins_iota).astype(jnp.float32)
     hits = jnp.einsum(

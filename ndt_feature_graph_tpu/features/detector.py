@@ -1,6 +1,6 @@
 """Multi-scale curvature interest-point detector.
 
-TPU-native re-design of flirtlib's CurvatureDetector +
+Batched re-design of flirtlib's CurvatureDetector +
 SimpleMinMaxPeakFinder stack (flirtlib_ros/src/flirtlib.cpp:41-51;
 canonical parameters at ndt_feature/include/ndt_feature/
 flirtlib_utils.h:15-35: 5 scales, base sigma 0.2, step 1.4, peak finder

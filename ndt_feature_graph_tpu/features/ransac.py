@@ -1,6 +1,6 @@
 """Batched RANSAC feature-set matcher.
 
-TPU-native re-design of flirtlib's RansacFeatureSetMatcher (three
+Batched re-design of flirtlib's RansacFeatureSetMatcher (three
 reference parameterizations — fuser 0.0599/0.9/0.1/0.6/0.0499 at
 ndt_feature_fuser_hmt.h:213, flirtlib_ros 0.0599/0.95/0.4/0.4/0.0384 at
 flirtlib.cpp:73, startup 0.98 at startup_loc.cpp:181; all expressible

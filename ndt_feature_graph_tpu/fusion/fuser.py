@@ -1,4 +1,4 @@
-"""Scan-to-submap fuser: TPU-native NDTFeatureFuserHMT.
+"""Scan-to-submap fuser: the NDTFeatureFuserHMT equivalent.
 
 Re-designs the per-scan pipeline of ndt_feature_fuser_hmt.cpp:108-512:
 motion-model covariance → local NDT build → joint registration (NDT +
@@ -47,9 +47,7 @@ class FuserState(NamedTuple):
     (d2d.DenseTarget.packed layout) maintained INCREMENTALLY: after a
     scan's points are scattered into `grid`, only the touched cells'
     rows are re-finalized (d2d.refresh_packed) instead of re-finalizing
-    all H*W cells every scan — the full-grid make_dense_target was
-    measured at ~3.6 ms/stream/scan on the real chip, the single
-    largest stage of the batched update (examples/profile_fleet.py).
+    all H*W cells every scan.
     Invariant: packed == d2d.packed_from_grid(grid) at all times."""
 
     Tnow: jnp.ndarray        # (3,) vehicle pose in submap/world frame
@@ -103,9 +101,8 @@ def _build_local_cells(params: FuserParams, sensor_pose, pts, mask):
     Uses the touched-candidate compaction (finalize + compact only
     the <= P cells this scan touched — bit-exact vs the full-grid
     to_cell_list, see ndt_map.to_cell_list_touched) whenever the
-    point capacity fits the cell capacity; the full-grid finalize was
-    the single largest fleet stage after the win-block table landed
-    (probe_scatter_stages round 5)."""
+    point capacity fits the cell capacity, instead of finalizing the
+    whole local grid."""
     lp = local_map_params(params)
     vpts = _vehicle_points(sensor_pose, pts)
     grid = ndt_map.empty_grid(lp, jnp.zeros(2))
@@ -348,13 +345,10 @@ def update_batch(
     flat packed table with per-stream row offsets instead of vmapping
     over per-stream tables.
 
-    Why: a vmapped gather whose OPERAND carries the batch dim lowers
-    terribly on TPU — measured round 4 (examples/profile_fleet.py),
-    the newton stage alone cost 7.35 ms/stream at B=128 (941 ms/step),
-    making fleet throughput FLAT in B (bench.py r4 first run: 124-140
-    aggregate scans/s at B in {8,32,128} vs 174 single-stream).
-    Indexing a shared flat table with `row_offset = i*H*W` is the same
-    fix that took offline pair registration 4x (graph/links.py
+    Why: a vmapped gather whose OPERAND carries the batch dim can
+    lower to a per-lane broadcast of the whole operand.  Indexing a
+    shared flat table with `row_offset = i*H*W` keeps it one plain
+    gather, the same form as offline pair registration (graph/links.py
     refine_links_d2d flat-bank form).
 
     `feat_src`/`feat_tgt` are optional BATCHED paired pseudo-cell
@@ -392,15 +386,13 @@ def update_batch(
     # batch-level Newton issues that gather with flattened 1-D indices
     # (no vmap batching dims — see fgh_dense_flat_batch), and the
     # win-row layout needs (2n+1) gather rows per source cell instead
-    # of (2n+1)^2 (the gather is row-transaction-bound; see
-    # d2d.build_wide_table).  Derived fresh each step from the
-    # incrementally-maintained packed table — pure slicing, recentre-
-    # safe, ~2 ms/step at B=128 vs the ~350 ms/step it saves.
-    # With gather_window_cells set, the bank is additionally bounded
-    # to each stream's sensor window around the predicted pose (and
-    # optionally stored bf16 with cell-relative means) — the table's
-    # VMEM residency sets the fleet throughput cliff, see
-    # config.FuserParams.gather_window_cells / gather_table_bf16.
+    # of (2n+1)^2 (see d2d.build_wide_table).  Derived fresh each step
+    # from the incrementally-maintained packed table — pure slicing,
+    # recentre-safe.  With gather_window_cells set, the bank is
+    # additionally bounded to each stream's sensor window around the
+    # predicted pose (and optionally stored bf16 with cell-relative
+    # means), see config.FuserParams.gather_window_cells /
+    # gather_table_bf16.
     origins = states.grid.origin                      # (B, 2)
     wc = params.gather_window_cells
     use_window = 0 < wc < min(h, w)

@@ -201,13 +201,9 @@ def refine_links_d2d(
     gather indexes the shared (N*H*W, 8) table with a per-pair row
     offset, instead of first materializing per-pair copies of whole
     target grids under vmap (~330 MB/evaluation at the canonical
-    256-pair batch — the offline phase's dominant HBM traffic before
-    round 4).  MEASURED round 5: a win-row bank here (5x fewer rows,
-    d2d.build_wide_table + explicit ref offsets) ran 157 pairs/s vs
-    457 for this flat path — 40-channel rows gather ~8x slower per
-    row from a large HBM-resident bank (round-4 probe), eating the
-    count win; win-rows pay off only for the small per-stream fleet
-    tables.  Kept flat.
+    256-pair batch).  A win-row bank here (5x fewer rows,
+    d2d.build_wide_table + explicit ref offsets) is the alternative;
+    which layout wins on the GPU is not measured yet.
 
     src_budget > 0 truncates each pair's source cell list to that many
     leading rows.  CellLists are compacted (valid cells first), so any
@@ -252,7 +248,7 @@ def refine_links_d2d(
     # cov_scale * floored-inverse-Hessian, symmetrized) — this used
     # to inline its own floor/scale, leaving the solver's relative
     # link-vs-odometry weighting to depend on which code path
-    # produced the link (VERDICT r2 weak #5).
+    # produced the link.
     cov = jax.vmap(lambda H: d2d.cov_from_hessian(H, m))(H_b)
     return links._replace(T=T, cov=cov, mask=links.mask & conv)
 

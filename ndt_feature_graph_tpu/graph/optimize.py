@@ -1,14 +1,13 @@
 """SE(2) pose-graph optimizer: batched Gauss-Newton.
 
-TPU-native replacement of the iSAM bridge (optimizeGraphUsingISAM,
+Batched replacement of the iSAM bridge (optimizeGraphUsingISAM,
 ndt_offline_mapper.h:40-107: prior Information(100*I) on node 0 + one
 Pose2d_Pose2d_Factor per link + batch_optimization).  Instead of
 sparse-Cholesky-with-elimination-ordering (isam/cholmod), factors are
 linearized *in batch* (vmapped analytic Jacobians), scattered into the
-dense normal-equations matrix, and solved with a damped dense Cholesky —
-dense is the right call on an MXU for graphs up to a few thousand
-nodes; the distributed Schur-complement path (parallel/) takes over
-beyond that.
+dense normal-equations matrix, and solved with a damped dense solve for
+graphs up to a few hundred nodes; the segment-Schur direct solver
+(graph/sparse_direct.py) takes over beyond that (GraphParams.solver).
 
 Edge measurement convention: meas = pose of node j expressed in node
 i's frame (relative pose), i.e. meas ≈ inv(T_i) ∘ T_j, matching
@@ -206,19 +205,15 @@ def assemble_normal_equations(p, edges: EdgeList, n: int,
 
 
 def f32_matmul(fn):
-    """TPU correctness guard for the pose-graph LINEAR SOLVES: trace
-    the wrapped solver under float32 matmul precision.
+    """Correctness guard for the pose-graph LINEAR SOLVES: trace the
+    wrapped solver under float32 matmul precision.
 
-    The TPU default precision runs f32 dots as single-pass bf16
-    products; inside an LU/triangular solve on a damped normal matrix
-    (condition ~1e10: information up to 1/link_info_eps over damping
-    1e-6) the 8-bit mantissa passes destroy the factorization.
-    Measured round 5 on hardware (BENCH_NOTES): an online incremental
-    solve with well-conditioned cm-residual inputs moved nodes
-    17,703 m at default precision vs 0.020 m at float32 — silently
-    corrupted trajectories wherever the dense solver ran on TPU.
-    Cost: the solves are a negligible share of any pipeline
-    (~100 ms per 570-node offline solve)."""
+    At default precision an accelerator may run f32 dots with reduced
+    mantissas (TF32 on the GPU: 10 bits); inside an LU/triangular
+    solve on a damped normal matrix (condition ~1e10: information up
+    to 1/link_info_eps over damping 1e-6) that destroys the
+    factorization and silently corrupts the trajectory.  The solves
+    are a small share of any pipeline, so full f32 costs little."""
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):

@@ -1,7 +1,6 @@
 """Sparse *direct* pose-graph solve: segment-Schur elimination.
 
-The production large-graph path (ROADMAP item 2): the TPU-native
-replacement for iSAM's sparse Cholesky (isam + cholmod, reference
+The production large-graph path: the batched replacement for iSAM's sparse Cholesky (isam + cholmod, reference
 ndt_offline_mapper.h:40-107) that — unlike graph/schur.py — never forms
 the dense (N, N, 3, 3) normal equations.  It exploits the structure a
 SLAM pose graph always has: a block-tridiagonal odometry chain plus a
@@ -19,7 +18,7 @@ loses ALL accuracy in f32 — the chain inverse grows ~len^3 through the
 theta-xy coupling) and raises parallelism.  Each segment couples to at
 most its two bounding separators, so its Schur contribution is a pair
 of 3x3-block outer products; the reduced separator system (3S x 3S,
-S ~ #closures + N/max_seg_len) is dense — solved on the MXU.
+S ~ #closures + N/max_seg_len) is dense — one dense device solve.
 
 Exact: matches the dense solver to float tolerance
 (tests/test_sparse_solver.py), O(N + S^2) memory, no iteration counts
@@ -274,7 +273,7 @@ def scatter_segment_contribs(H_SS, b_S, contribs, seg_left, seg_right):
 
 
 def reduced_solve(H_SS, b_S):
-    """Dense reduced solve on the MXU."""
+    """Dense reduced solve of the separator system."""
     S = b_S.shape[0]
     Sd = H_SS.transpose(0, 2, 1, 3).reshape(3 * S, 3 * S)
     diag = jnp.diagonal(Sd)

@@ -1,6 +1,6 @@
 """Independent evaluation simulator.
 
-VERDICT round-1 "missing #1": every accuracy number came from
+Why: otherwise every accuracy number would come from
 io/dataset.py's raycast simulator — a correlated-evidence loop (the
 SLAM and the simulator share the world model, beam model, and noise
 assumptions).  No real lidar log exists in this environment (zero

@@ -1,10 +1,10 @@
 """NDT Monte-Carlo localization: batched particle filter on an NDT map.
 
-TPU-native replacement of perception_oru's NDTMCL3D (wrapped by
+Batched replacement of perception_oru's NDTMCL3D (wrapped by
 ndt_feature_mcl_node.cpp:58-482), specialized to SE(2).  Particle
 scoring — the reference's per-particle loop — is one (P, B) gather +
 gaussian-likelihood batch, the embarrassingly-parallel workload SURVEY
-§2.3 calls out as ideal for the TPU.  Predict / weight / resample are
+§2.3 calls out as ideal for an accelerator.  Predict / weight / resample are
 all jitted; systematic resampling uses a sorted-uniform inverse-CDF
 lookup (searchsorted) instead of a sequential walk.
 """

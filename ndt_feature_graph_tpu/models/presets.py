@@ -90,15 +90,12 @@ def offline_mapper(num_beams=720) -> SLAMParams:
 
 
 def fleet_serving(num_beams=720, features=True) -> FuserParams:
-    """Multi-robot fleet serving operating point (round 5): the
-    batched drivers (scan_driver.run_sequence_batch /
-    run_sequence_features_batch) with the sensor-window-bounded
-    WIN-BLOCK bf16 gather bank — one gathered row per source cell, the
-    measured-best registration table shape (aggregate ~580 scans/s at
-    any B in 8..64 on one v5e chip vs ~390 peak/collapsing for the
-    round-4 full-grid bank; BENCH_NOTES round 5).  bf16 table
-    quantization moves poses by ~0.3 mm at the canonical op point
-    (tests/test_scan_driver.py).  Serve large fleets through
+    """Multi-robot fleet serving operating point: the batched drivers
+    (scan_driver.run_sequence_batch / run_sequence_features_batch)
+    with the sensor-window-bounded WIN-BLOCK bf16 gather bank — one
+    gathered row per source cell.  bf16 table quantization moves poses
+    by a few mm at the canonical op point (chip_smoke.py's fleet
+    phase; tests/test_scan_driver.py).  Serve large fleets through
     parallel/scaling.serve_fleet_interleaved for the per-robot
     latency contract."""
     base = FuserParams(

@@ -1,6 +1,6 @@
 """NDT distribution-to-distribution (D2D) registration.
 
-TPU-native replacement of NDTMatcherD2D / NDTMatcherD2D_2D /
+Batched replacement of NDTMatcherD2D / NDTMatcherD2D_2D /
 NDTMatcherFeatureD2D and the first-party fusion Newton loop
 (ndt_matcher_d2d_fusion.h:797-1155).  See SURVEY.md §2.3 / §7.3.
 
@@ -46,12 +46,8 @@ class DenseTarget(NamedTuple):
     `packed` carries all per-cell fields channel-packed in ONE flat
     (H*W, 8) array so a registration evaluation performs a SINGLE
     gather of its (N, K) window rows instead of three separate gathers
-    (means/covs/valid) of the same rows — the evaluation is
-    gather-bound on TPU, and one 8-channel row costs the same gather
-    slot as a 2-channel one.  Channels:
-    [mean_x, mean_y, c00, c01, c11, valid, 0, 0] (8 for alignment).
-    (A 2-D windowed dynamic-slice variant was measured 6x SLOWER —
-    (5, 5, 8) slices tile terribly against the 128-lane minor dim.)"""
+    (means/covs/valid) of the same rows.  Channels:
+    [mean_x, mean_y, c00, c01, c11, valid, 0, 0] (8 for alignment)."""
 
     origin: jnp.ndarray   # (2,)
     means: jnp.ndarray    # (H, W, 2)
@@ -65,11 +61,9 @@ class PackedTarget(NamedTuple):
     table ONLY — what the production graph paths actually read (flat
     gathers + origin).  Node banks store this instead of a full
     DenseTarget: the unpacked means/covs/valid duplicated the packed
-    channels, and the bank-sized (N, H, W, 2, 2) zero-broadcast
-    intermediates picked a (2, 128)-tiled layout that padded 64x
-    (measured round 5: a 600-node canonical bank allocated 24.5 GB
-    and OOM'd the 16 GB chip).  means/covs/valid views are derivable
-    by slicing (unpack_fields / dense_from_packed)."""
+    channels and made bank-sized (N, H, W, 2, 2) intermediates.
+    means/covs/valid views are derivable by slicing (unpack_fields /
+    dense_from_packed)."""
 
     origin: jnp.ndarray   # (2,)
     packed: jnp.ndarray   # (H * W, 8)
@@ -159,9 +153,7 @@ def refresh_packed(packed, grid: ndt_map.NDTGrid, params: NDTMapParams,
     ndt_map.add_points_touched (sentinel h*w = dropped point).  Only
     those cells' sufficient statistics changed, so only their packed
     rows are re-finalized (gather P rows -> finalize_stats -> scatter
-    back) — the full-grid make_dense_target re-finalize was measured at
-    ~3.6 ms/stream/scan on the real chip (the single largest stage of
-    the batched fuser update, examples/profile_fleet.py round 4);
+    back) instead of the full-grid make_dense_target re-finalize;
     refreshing <=P rows is ~50x less work.  Duplicate indices write
     identical rows — scatter-set is deterministic here.
 
@@ -382,15 +374,10 @@ def newton_match(
     by adaptive damping with Armijo acceptance — the same bounded-step
     safeguard in one fixed-shape loop.
 
-    Cost shape (measured on real TPU, canonical op point): one dense
-    fgh/score evaluation costs ~0.2 ms and the cost scales with work
-    (gather-bound), so the trial loop is engineered to pay EXACTLY ONE
-    evaluation per trial: the trial point's derivatives double as the
-    next iteration's linearization (fgh-reuse), instead of a separate
-    score probe followed by a fresh fgh.  A batched multi-lambda
-    line-search variant was measured SLOWER (evals scale with the
-    candidate count — there is no fixed overhead to amortize).
-    Convergence quality is validated on the reference's perturbation
+    Cost shape: the trial loop pays EXACTLY ONE fgh evaluation per
+    trial: the trial point's derivatives double as the next
+    iteration's linearization (fgh-reuse), instead of a separate
+    score probe followed by a fresh fgh.  Convergence quality is validated on the reference's perturbation
     sweeps in tests/test_d2d.py.
 
     Returns (d, score_best, trials, converged).
@@ -408,9 +395,9 @@ def newton_match(
     eye = jnp.eye(3, dtype=jnp.float32)
 
     # Fixed-trip scan with masked updates instead of lax.while_loop:
-    # dynamic trip counts serialize badly on TPU (each while iteration
-    # pays a sync/dispatch overhead ~20x the 3-DoF math), whereas a
-    # static unrolled scan pipelines.  The budget is spent in CHUNKS of
+    # a while loop pays a condition check (on the GPU, a predicate
+    # copy to the host) per iteration, far more than the 3-DoF math,
+    # whereas a static unrolled scan pipelines.  The budget is spent in CHUNKS of
     # `trial_chunk` trials; between chunks a lax.cond skips the entire
     # remaining work once `stop` is set — so a run converging in ~8
     # trials pays for ~12, not the full 60.  Under vmap the cond
@@ -531,7 +518,7 @@ def cov_from_hessian(H, m: MatcherParams):
     semantics).  Every consumer of a registration covariance — link
     refinement (graph/links.py), fuser covariance accumulation — must
     use this one function so the solver's information weighting is
-    consistent (VERDICT r2 weak #5).  The reconstruction is
+    consistent.  The reconstruction is
     explicitly symmetrized: in f32, V diag(1/w) V^T with a wide
     eigenvalue spread loses symmetry at the ~1e-3 absolute level,
     enough to make the smallest covariance eigenvalue negative and the
@@ -572,8 +559,8 @@ def newton_match_batch(d_init_b, m: MatcherParams, fgh_fn_batch):
     ALL lanes in one call — the point of this variant: the caller can
     issue the window gather with flattened 1-D indices
     (d2d_analytic.fgh_dense_flat_batch) instead of a vmapped
-    batched-index gather, whose TPU lowering broadcasts the shared
-    bank per lane (20 GB at the B=128 fleet point — round 4).
+    batched-index gather, which can lower to a per-lane broadcast of
+    the shared bank.
 
     Identical trial logic to newton_match (fgh-reuse trials, PSD
     projection, LM damping, Armijo acceptance, best-score fallback,
@@ -674,19 +661,16 @@ def build_wide_table(packed, h: int, w: int, n: int = 2):
     or [W, W+n-1]) still have in-grid window cells; clipping them onto
     column 0 / W-1 would return a SHIFTED window (wrong cells), and
     masking them entirely diverges from the per-cell bounds of the
-    flat path at the horizontal map edges (ADVICE round 4).  With the
+    flat path at the horizontal map edges.  With the
     padded layout every centre column whose window intersects the grid
     has its own exact win-row, and per-cell validity comes from the
     empty padding — fgh_dense_wide_batch is numerically identical to
     fgh_dense_flat_batch everywhere, including the edge bands.
 
-    Why the win-row shape at all: the registration window gather is
-    ROW-transaction-bound on TPU (measured round 4: ~40-50 Mrows/s
-    from an HBM-resident bank regardless of batch size,
-    examples/probe_fleet_stages.py).  A (2n+1)^2 window around a cell
-    is (2n+1) vertically-adjacent win-rows, so gathering from this
-    table needs (2n+1) rows per source cell instead of (2n+1)^2 — a
-    5x cut in the dominant cost at the canonical 5x5 window.  Derived
+    Why the win-row shape at all: a (2n+1)^2 window around a cell is
+    (2n+1) vertically-adjacent win-rows, so gathering from this table
+    needs (2n+1) rows per source cell instead of (2n+1)^2 — 5x fewer
+    gathered rows at the canonical 5x5 window.  Derived
     per scan step (or per offline batch) from the incrementally-
     maintained 8-channel table; the derivation is pure slicing/concat
     (no gathers).  Row offsets into a stacked bank are multiples of
@@ -741,11 +725,8 @@ def build_window_tables(
     Why: a registration gather only ever reads rows within the sensor
     disc of the pose (~2*sensor_range/resolution cells), but the
     full-map table spans the whole grid — at the canonical op point
-    40k rows/stream of which a scan touches <15%.  The table's VMEM
-    residency sets the fleet throughput cliff (BENCH_NOTES round 4:
-    row-gather rate collapses ~10x once the shared bank spills past
-    B~8); the window table shrinks rows by (win_cells^2 / (H*W)),
-    moving that cliff to proportionally larger B.  EXACT vs the
+    40k rows/stream of which a scan touches <15%; the window table
+    shrinks rows by (win_cells^2 / (H*W)).  EXACT vs the
     full-grid table when win_cells covers every source cell's
     neighbourhood (config.FuserParams.gather_window_cells bound);
     windows are clamped inside the grid so edge poses keep full
@@ -809,12 +790,9 @@ def build_window_block_tables(
     evaluation gathers exactly ONE row per source cell instead of
     (2n+1) win-rows or (2n+1)^2 cell rows.
 
-    Why: the gather is ROW-transaction-bound (BENCH_NOTES rounds 4-5:
-    win-rows at 5x fewer transactions won ~2x; the per-trial Newton
-    gather still dominates the fleet step and degrades with B).  A
-    (2n+1)^2*8-channel row is ~400 B in bf16 — the extra bytes ride
-    the same transaction far below the bandwidth bound (measured
-    round 5).  The table is (2n+1)^2/(2n+1) = 5x larger than the
+    Why: the per-trial Newton gather then moves one contiguous
+    (2n+1)^2*8-channel row (~400 B in bf16) per source cell.  The
+    table is (2n+1)^2/(2n+1) = 5x larger than the
     win-row form but windowed + bf16 keeps it ~8 MB/stream at the
     canonical op point.
 

@@ -1,7 +1,7 @@
 """Analytic D2D derivatives: score + gradient + Hessian in ONE pass
 over cell pairs.
 
-This is the TPU `derivativesNDT` (perception_oru's hand-derived
+This is the batched `derivativesNDT` (perception_oru's hand-derived
 Magnusson-2009 derivatives, the hot loop of the reference's Newton
 iteration — SURVEY.md §3.1).  The autodiff path (ops/d2d.py) evaluates
 the cost ~4x per Newton trial (value + reverse pass + 3 forward-over-
@@ -30,6 +30,7 @@ target (mu2, S2)):
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ndt_feature_graph_tpu.config import MatcherParams, NDTMapParams
@@ -37,119 +38,115 @@ from ndt_feature_graph_tpu.ops.d2d import DenseTarget
 from ndt_feature_graph_tpu.ops.ndt_map import CellList
 
 
-def _inv2(Sig):
-    a = Sig[..., 0, 0]
-    b = Sig[..., 0, 1]
-    c = Sig[..., 1, 1]
-    det = jnp.maximum(a * c - b * b, 1e-12)
-    inv_det = 1.0 / det
-    A = jnp.stack(
-        [
-            jnp.stack([c * inv_det, -b * inv_det], -1),
-            jnp.stack([-b * inv_det, a * inv_det], -1),
-        ],
-        -2,
-    )
-    return A
-
-
-def _pair_fgh(mu, Sig, m_rot, Crot, lfd1, lfd2):
-    """Per-pair (score, grad (3,), hess (3, 3)) — batched over leading
-    dims.
+def _pair_fgh_terms(mu, Sig, m_rot, Crot, lfd1, lfd2):
+    """Per-pair score, gradient and upper Hessian as ten elementwise
+    arrays (s, g0, g1, g2, h00, h01, h02, h11, h12, h22), batched over
+    leading dims (broadcasting).
 
     mu: (..., 2) mean difference; Sig: (..., 2, 2) summed covariance;
     m_rot: the rotation-dependent part of the moved source mean at the
     evaluation point (moved_mean - d_translation — the left-increment's
     rotation acts on everything except d's own translation);
-    Crot = rotated source cov.  Derivatives use the rotation generator
+    Crot = rotated source cov K.  Derivatives use the rotation generator
     G = [[0,-1],[1,0]] applied to m_rot/Crot.
+
+    The 2x2 algebra is unrolled into scalar lanes: no matmul, so the
+    result is plain float32 at any matmul precision setting (TF32 would
+    otherwise round einsum operands to 10 mantissa bits), and XLA fuses
+    the whole chain with the masked sum that follows.
     """
-    A = _inv2(Sig)
-    Amu = jnp.einsum("...ij,...j->...i", A, mu)
-    q = jnp.einsum("...i,...i->...", mu, Amu)
+    mu_x, mu_y = mu[..., 0], mu[..., 1]
+    s00, s01, s11 = Sig[..., 0, 0], Sig[..., 0, 1], Sig[..., 1, 1]
+    mx, my = m_rot[..., 0], m_rot[..., 1]
+    c00, c01, c11 = Crot[..., 0, 0], Crot[..., 0, 1], Crot[..., 1, 1]
 
-    # Rotation generator applied at the evaluation point:
-    # d/dtheta (R m) = G (R m); d/dtheta (R C R^T) = G K + K G^T, K=RCR^T.
-    gx, gy = -m_rot[..., 1], m_rot[..., 0]          # G (R m)
-    mu_t = jnp.stack([gx, gy], -1)
-    mu_tt = -m_rot
+    # A = Sig^{-1}
+    inv = 1.0 / jnp.maximum(s00 * s11 - s01 * s01, 1e-12)
+    a00, a01, a11 = s11 * inv, -s01 * inv, s00 * inv
+    amu_x = a00 * mu_x + a01 * mu_y
+    amu_y = a01 * mu_x + a11 * mu_y
+    q = mu_x * amu_x + mu_y * amu_y
 
-    # S = G K + K G^T with K = Crot (2x2 symmetric).
-    k00 = Crot[..., 0, 0]
-    k01 = Crot[..., 0, 1]
-    k11 = Crot[..., 1, 1]
-    # G K = [[-k10, -k11], [k00, k01]]
-    S = jnp.stack(
-        [
-            jnp.stack([-2.0 * k01, k00 - k11], -1),
-            jnp.stack([k00 - k11, 2.0 * k01], -1),
-        ],
-        -2,
-    )
-    # S2d = d/dtheta S = G S + S G^T = -2 K + 2 G K G^T.
-    # G K G^T = [[k11, -k01], [-k01, k00]]
-    GKG = jnp.stack(
-        [
-            jnp.stack([k11, -k01], -1),
-            jnp.stack([-k01, k00], -1),
-        ],
-        -2,
-    )
-    S2d = -2.0 * Crot + 2.0 * GKG
+    # mu_t = G m_rot = (-my, mx); mu_tt = -m_rot
+    mt_x, mt_y = -my, mx
+    # S = G K + K G^T;  S2d = d/dtheta S = -2K + 2 G K G^T
+    S00, S01, S11 = -2.0 * c01, c00 - c11, 2.0 * c01
+    S2d00, S2d01, S2d11 = 2.0 * (c11 - c00), -4.0 * c01, 2.0 * (c00 - c11)
 
-    ASA_mu = jnp.einsum(
-        "...ij,...jk,...k->...i", A, S, Amu
-    )  # A S A mu
-    # q_i for translations: 2 (A mu)_i
-    q_x = 2.0 * Amu[..., 0]
-    q_y = 2.0 * Amu[..., 1]
-    q_t = 2.0 * jnp.einsum("...i,...i->...", Amu, mu_t) - jnp.einsum(
-        "...i,...i->...", mu, ASA_mu
-    )
-    q_grad = jnp.stack([q_x, q_y, q_t], -1)
+    # A S A mu
+    sa_x = S00 * amu_x + S01 * amu_y
+    sa_y = S01 * amu_x + S11 * amu_y
+    asa_x = a00 * sa_x + a01 * sa_y
+    asa_y = a01 * sa_x + a11 * sa_y
 
-    # Hessian of q.
-    # translations block: 2 A
-    h_xx = 2.0 * A[..., 0, 0]
-    h_xy = 2.0 * A[..., 0, 1]
-    h_yy = 2.0 * A[..., 1, 1]
-    # x/theta & y/theta: 2 e_i^T A mu_t + 2 e_i^T A_t mu
-    #   A_t mu = -A S A mu = -ASA_mu
-    A_mu_t = jnp.einsum("...ij,...j->...i", A, mu_t)
-    h_xt = 2.0 * A_mu_t[..., 0] - 2.0 * ASA_mu[..., 0]
-    h_yt = 2.0 * A_mu_t[..., 1] - 2.0 * ASA_mu[..., 1]
-    # theta/theta:
-    #   2 mu_t^T A mu_t + 2 mu^T A mu_tt + 4 mu^T A_t mu_t
-    #   + mu^T A_tt mu,  A_tt = 2 A S A S A - A S2d A
-    t1 = 2.0 * jnp.einsum("...i,...i->...", mu_t, A_mu_t)
-    t2 = 2.0 * jnp.einsum("...i,...i->...", Amu, mu_tt)
-    t3 = -4.0 * jnp.einsum("...i,...i->...", ASA_mu, mu_t)
-    # A_tt mu = 2 A S A S A mu - A S2d A mu
-    ASASA_mu = jnp.einsum("...ij,...jk,...k->...i", A, S, ASA_mu)
-    AS2A_mu = jnp.einsum("...ij,...jk,...k->...i", A, S2d, Amu)
-    t4 = jnp.einsum(
-        "...i,...i->...", mu, 2.0 * ASASA_mu - AS2A_mu
-    )
-    h_tt = t1 + t2 + t3 + t4
+    # q_i: translations 2 (A mu)_i; theta 2 (A mu).mu_t - mu.(A S A mu)
+    q_x = 2.0 * amu_x
+    q_y = 2.0 * amu_y
+    q_t = 2.0 * (amu_x * mt_x + amu_y * mt_y) - (mu_x * asa_x + mu_y * asa_y)
 
-    q_hess = jnp.stack(
-        [
-            jnp.stack([h_xx, h_xy, h_xt], -1),
-            jnp.stack([h_xy, h_yy, h_yt], -1),
-            jnp.stack([h_xt, h_yt, h_tt], -1),
-        ],
-        -2,
-    )
+    # Hessian of q.  Translations: 2 A.  x/theta & y/theta:
+    # 2 e_i^T A mu_t + 2 e_i^T A_t mu with A_t mu = -A S A mu.
+    amt_x = a00 * mt_x + a01 * mt_y
+    amt_y = a01 * mt_x + a11 * mt_y
+    h_xx, h_xy, h_yy = 2.0 * a00, 2.0 * a01, 2.0 * a11
+    h_xt = 2.0 * (amt_x - asa_x)
+    h_yt = 2.0 * (amt_y - asa_y)
+    # theta/theta: 2 mu_t^T A mu_t + 2 mu^T A mu_tt + 4 mu^T A_t mu_t
+    #   + mu^T A_tt mu,  A_tt mu = 2 A S A S A mu - A S2d A mu
+    t1 = 2.0 * (mt_x * amt_x + mt_y * amt_y)
+    t2 = -2.0 * (amu_x * mx + amu_y * my)
+    t3 = -4.0 * (asa_x * mt_x + asa_y * mt_y)
+    sasa_x = S00 * asa_x + S01 * asa_y
+    sasa_y = S01 * asa_x + S11 * asa_y
+    s2a_x = S2d00 * amu_x + S2d01 * amu_y
+    s2a_y = S2d01 * amu_x + S2d11 * amu_y
+    att_x = 2.0 * (a00 * sasa_x + a01 * sasa_y) - (a00 * s2a_x + a01 * s2a_y)
+    att_y = 2.0 * (a01 * sasa_x + a11 * sasa_y) - (a01 * s2a_x + a11 * s2a_y)
+    h_tt = t1 + t2 + t3 + mu_x * att_x + mu_y * att_y
 
     a = 0.5 * lfd2
     E = jnp.exp(-a * q)
-    s = -lfd1 * E
-    g = (lfd1 * a) * E[..., None] * q_grad
-    H = (lfd1 * a) * E[..., None, None] * (
-        q_hess
-        - a * q_grad[..., :, None] * q_grad[..., None, :]
+    k = (lfd1 * a) * E
+    return (
+        -lfd1 * E,
+        k * q_x, k * q_y, k * q_t,
+        k * (h_xx - a * q_x * q_x),
+        k * (h_xy - a * q_x * q_y),
+        k * (h_xt - a * q_x * q_t),
+        k * (h_yy - a * q_y * q_y),
+        k * (h_yt - a * q_y * q_t),
+        k * (h_tt - a * q_t * q_t),
     )
-    return s, g, H
+
+
+def _masked_fgh_sum(mu, Sig, m_rot, Crot, ok, m: MatcherParams, axes):
+    """Per-pair (score, grad (3,), Hessian (3, 3)) summed over `axes`
+    where `ok`.
+
+    The one pair-derivative reduction every registration path shares;
+    its device time appears under the "pair_fgh_reduce" scope in a
+    profiler trace.  The ten terms are stacked on a new leading axis
+    and summed in ONE reduction (one kernel on the GPU, where ten
+    separate sums launched ten)."""
+    axes = (axes,) if isinstance(axes, int) else axes
+    with jax.named_scope("pair_fgh_reduce"):
+        terms = jnp.stack(
+            _pair_fgh_terms(mu, Sig, m_rot, Crot, m.lfd1, m.lfd2)
+        )
+        s, g0, g1, g2, h00, h01, h02, h11, h12, h22 = jnp.sum(
+            terms * ok.astype(jnp.float32),
+            axis=tuple(a % ok.ndim + 1 for a in axes),
+        )
+        g = jnp.stack([g0, g1, g2], -1)
+        H = jnp.stack(
+            [
+                jnp.stack([h00, h01, h02], -1),
+                jnp.stack([h01, h11, h12], -1),
+                jnp.stack([h02, h12, h22], -1),
+            ],
+            -2,
+        )
+        return s, g, H
 
 
 def _fgh_reduce(d, moved, t_means, t_covs, t_valid, m: MatcherParams):
@@ -158,23 +155,9 @@ def _fgh_reduce(d, moved, t_means, t_covs, t_valid, m: MatcherParams):
     Sig = moved.covs[:, None, :, :] + t_covs
     m_rot = (moved.means - d[:2])[:, None, :]
     ok = t_valid & moved.mask[:, None]
-
-    if m.use_pallas:
-        from ndt_feature_graph_tpu.ops import pallas_kernels
-
-        return pallas_kernels.pair_fgh_reduce(
-            mu, Sig, m_rot, moved.covs[:, None, :, :], ok,
-            m.lfd1, m.lfd2,
-        )
-
-    s, g, H = _pair_fgh(
-        mu, Sig, m_rot, moved.covs[:, None, :, :], m.lfd1, m.lfd2
+    return _masked_fgh_sum(
+        mu, Sig, m_rot, moved.covs[:, None, :, :], ok, m, (0, 1)
     )
-    okf = ok.astype(jnp.float32)
-    f = jnp.sum(s * okf)
-    grad = jnp.sum(g * okf[..., None], axis=(0, 1))
-    hess = jnp.sum(H * okf[..., None, None], axis=(0, 1))
-    return f, grad, hess
 
 
 def fgh_dense(
@@ -244,14 +227,9 @@ def fgh_paired(d, T0, src: CellList, tgt: CellList, m: MatcherParams):
     moved = src.transform(T)
     mu = moved.means - tgt.means
     Sig = moved.covs + tgt.covs
-    s, g, H = _pair_fgh(
-        mu, Sig, moved.means - d[:2], moved.covs, m.lfd1, m.lfd2
-    )
-    ok = (src.mask & tgt.mask).astype(jnp.float32)
-    return (
-        jnp.sum(s * ok),
-        jnp.sum(g * ok[..., None], axis=0),
-        jnp.sum(H * ok[..., None, None], axis=0),
+    return _masked_fgh_sum(
+        mu, Sig, moved.means - d[:2], moved.covs, src.mask & tgt.mask, m,
+        0,
     )
 
 
@@ -277,17 +255,14 @@ def fgh_dense_flat_batch(
     """Batched fgh_dense_flat for B lanes with ONE unbatched gather.
 
     vmap(fgh_dense_flat) makes the window gather's indices carry a
-    batch dim over a shared operand; on TPU that lowering materializes
-    a per-lane broadcast of the WHOLE bank (seen round 4: a
-    f32[128, 5.12M, 8] = 20 GB remat allocation killed the B=128 fleet
-    compile).  Here the per-lane geometry runs under vmap (cheap
+    batch dim over a shared operand, which can lower to a per-lane
+    broadcast of the WHOLE bank (a f32[128, 5.12M, 8] = 20 GB
+    allocation at B=128).  Here the per-lane geometry runs under vmap (cheap
     elementwise math) but the gather is issued manually with FLATTENED
     1-D indices — a plain gather, no operand batching dims.
 
     Returns (f (B,), g (B, 3), H (B, 3, 3)).
     """
-    import jax
-
     from ndt_feature_graph_tpu.ops.d2d import _apply_increment
 
     n = m.n_neighbours
@@ -332,14 +307,9 @@ def fgh_dense_flat_batch(
     m_rot = (moved.means - d_b[:, None, :2])[..., None, :]
     ok = t_valid & moved.mask[..., None]
 
-    s, g, H = _pair_fgh(
-        mu, Sig, m_rot, moved.covs[..., None, :, :], m.lfd1, m.lfd2
+    return _masked_fgh_sum(
+        mu, Sig, m_rot, moved.covs[..., None, :, :], ok, m, (1, 2)
     )
-    okf = ok.astype(jnp.float32)
-    f = jnp.sum(s * okf, axis=(1, 2))
-    grad = jnp.sum(g * okf[..., None], axis=(1, 2))
-    hess = jnp.sum(H * okf[..., None, None], axis=(1, 2))
-    return f, grad, hess
 
 
 def fgh_dense_window_batch(
@@ -366,8 +336,6 @@ def fgh_dense_window_batch(
 
     Returns (f (B,), g (B, 3), H (B, 3, 3)).
     """
-    import jax
-
     from ndt_feature_graph_tpu.ops.d2d import _apply_increment
 
     n = m.n_neighbours
@@ -449,14 +417,9 @@ def fgh_dense_window_batch(
     m_rot = (moved.means - d_b[:, None, :2])[..., None, :]
     ok = t_valid & moved.mask[..., None]
 
-    s, g, H = _pair_fgh(
-        mu, Sig, m_rot, moved.covs[..., None, :, :], m.lfd1, m.lfd2
+    return _masked_fgh_sum(
+        mu, Sig, m_rot, moved.covs[..., None, :, :], ok, m, (1, 2)
     )
-    okf = ok.astype(jnp.float32)
-    f = jnp.sum(s * okf, axis=(1, 2))
-    grad = jnp.sum(g * okf[..., None], axis=(1, 2))
-    hess = jnp.sum(H * okf[..., None, None], axis=(1, 2))
-    return f, grad, hess
 
 
 def fgh_dense_block_batch(
@@ -474,8 +437,7 @@ def fgh_dense_block_batch(
     """fgh against WIN-BLOCK window tables
     (d2d.build_window_block_tables): ONE gathered row per source cell
     carries its whole (2n+1)^2 neighbourhood — the minimum possible
-    transaction count for the window association (the gather is
-    row-transaction-bound, BENCH_NOTES rounds 4-5).  Masking: the
+    row count for the window association.  Masking: the
     doubly-padded table gives every centre whose window intersects the
     window slice an exact row with per-cell validity; centres outside
     the padded bounds have fully-off-window neighbourhoods and are
@@ -484,8 +446,6 @@ def fgh_dense_block_batch(
 
     Returns (f (B,), g (B, 3), H (B, 3, 3)).
     """
-    import jax
-
     from ndt_feature_graph_tpu.ops.d2d import _apply_increment
 
     n = m.n_neighbours
@@ -545,14 +505,9 @@ def fgh_dense_block_batch(
     m_rot = (moved.means - d_b[:, None, :2])[..., None, :]
     ok = t_valid & moved.mask[..., None]
 
-    s, g, H = _pair_fgh(
-        mu, Sig, m_rot, moved.covs[..., None, :, :], m.lfd1, m.lfd2
+    return _masked_fgh_sum(
+        mu, Sig, m_rot, moved.covs[..., None, :, :], ok, m, (1, 2)
     )
-    okf = ok.astype(jnp.float32)
-    f = jnp.sum(s * okf, axis=(1, 2))
-    grad = jnp.sum(g * okf[..., None], axis=(1, 2))
-    hess = jnp.sum(H * okf[..., None, None], axis=(1, 2))
-    return f, grad, hess
 
 
 def fgh_dense_wide_batch(
@@ -571,8 +526,8 @@ def fgh_dense_wide_batch(
     """fgh_dense_flat_batch against the WIN-ROW table: each source
     cell's (2n+1)^2 window is (2n+1) gathered win-rows (vertical
     neighbours), each already carrying the (2n+1) horizontal cells —
-    (2n+1)x fewer gather rows than the 8-channel table, and the gather
-    is row-transaction-bound (see d2d.build_wide_table).  Numerically
+    (2n+1)x fewer gather rows than the 8-channel table (see
+    d2d.build_wide_table).  Numerically
     identical to fgh_dense_flat_batch everywhere including the
     horizontal edge bands: the table's padded column layout gives
     every centre column whose window intersects the grid an exact

@@ -2,7 +2,7 @@
 
 Replaces occupancy_grid_utils::distanceField (used by the scan-pose
 evaluator, flirtlib_ros/src/localization_monitor.cpp:43).  Jump
-flooding is the TPU-friendly EDT: log2(n) rounds of fixed-shape
+flooding is the accelerator-friendly EDT: log2(n) rounds of fixed-shape
 neighbour gathers, no data-dependent control flow (SURVEY.md §2.3).
 """
 

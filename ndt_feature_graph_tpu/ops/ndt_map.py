@@ -1,4 +1,4 @@
-"""NDT grid builder: TPU-native replacement of NDTMap/LazyGrid/
+"""NDT grid builder: fixed-shape replacement of NDTMap/LazyGrid/
 computeNDTCells (perception_oru externals, see SURVEY.md §2.3).
 
 Design: a *dense, fixed-shape* (H, W) cell grid per submap instead of the
@@ -110,8 +110,7 @@ def add_points_touched(
     # Scatter IN PLACE (mode="drop" eats the sentinel) instead of
     # scattering into a fresh (H*W+1, ...) array and adding: the old
     # form materialized zeros + a full-grid elementwise add per field
-    # per scan — ~1 MB of avoidable traffic per stream per scan,
-    # a visible slice of the fleet step (probe_scatter_stages r5).
+    # per scan — ~1 MB of avoidable traffic per stream per scan.
     count = grid.count.reshape(-1).at[flat].add(
         ok.astype(grid.count.dtype), mode="drop"
     ).reshape(h, w)
@@ -203,9 +202,15 @@ def condition_cov(cov, min_eig_ratio=1e-3, min_eig_abs=1e-6):
     evals, evecs = _sym_eig_2x2(cov)
     lmax = jnp.maximum(evals[..., 1], min_eig_abs)
     lmin = jnp.clip(evals[..., 0], min_eig_ratio * lmax, None)
-    lam = jnp.stack([lmin, lmax], -1)
-    return jnp.einsum(
-        "...ij,...j,...kj->...ik", evecs, lam, evecs
+    # V diag(lam) V^T written out (an einsum would run in TF32 on the
+    # GPU at default precision).
+    v00, v01 = evecs[..., 0, 0], evecs[..., 0, 1]
+    v10, v11 = evecs[..., 1, 0], evecs[..., 1, 1]
+    c00 = v00 * v00 * lmin + v01 * v01 * lmax
+    c01 = v00 * v10 * lmin + v01 * v11 * lmax
+    c11 = v10 * v10 * lmin + v11 * v11 * lmax
+    return jnp.stack(
+        [jnp.stack([c00, c01], -1), jnp.stack([c01, c11], -1)], -2
     )
 
 
@@ -274,9 +279,7 @@ def to_cell_list_touched(
     max_cells; callers must guarantee
     max_points_per_scan <= max_cells (fusion/fuser._build_local_cells
     checks and falls back).  The full-grid form finalizes ~16k cells
-    and runs an H*W-wide compaction per stream per scan — measured as
-    the single largest fleet stage once the win-block table removed
-    the gather bottleneck (probe_scatter_stages round 5).
+    and runs an H*W-wide compaction per stream per scan.
     """
     h, w = params.grid_h, params.grid_w
     cap = params.max_cells

@@ -2,13 +2,15 @@
 
 The reference has no distributed backend at all (SURVEY.md §2.3 bottom);
 scale-out here is new design: jax.sharding Mesh + shard_map with XLA
-collectives over ICI (intra-slice) / DCN (inter-slice).  Conventions:
+collectives (NCCL on GPUs) over NVLink inside a host and the network
+between hosts.  Conventions:
   axis "dp"  — data parallel over submaps / scan streams / link pairs
   axis "gp"  — graph parallel over factor-graph edges
-  axes ("dcn", "ici") — 2-D multi-host mesh: processes (hosts/slices)
-  on the outer DCN axis, each process's local devices on the inner ICI
-  axis, so that sharded work reduces over ICI first and only the
-  host-level partial crosses DCN.
+  axes ("dcn", "ici") — 2-D multi-host mesh: processes (hosts) on the
+  outer "dcn" axis (the network between hosts), each process's local
+  devices on the inner "ici" axis (NVLink inside the host), so that
+  sharded work reduces inside the host first and only the host-level
+  partial crosses the network.
 A 1-D mesh uses "dp" for both roles.  Every sharded program in this
 package takes `axis` as a name OR a tuple of names, so the same code
 runs on a flat single-host mesh and on the 2-D (dcn, ici) layout
@@ -27,8 +29,8 @@ def init_distributed(coordinator_address=None, num_processes=None,
     """Multi-host bootstrap (jax.distributed.initialize wrapper).
 
     Call once per process before any other JAX API.  With no arguments
-    it defers to cluster auto-detection (TPU pod metadata / SLURM); on
-    CPU/GPU test rigs pass coordinator_address="host:port",
+    it defers to cluster auto-detection (e.g. SLURM); elsewhere pass
+    coordinator_address="host:port",
     num_processes, process_id explicitly.  No-op for single-process
     runs (num_processes in (None, 1) and no cluster env)."""
     if num_processes is not None and num_processes <= 1:
@@ -50,8 +52,9 @@ def make_mesh(n_devices=None, axis="dp"):
 def make_mesh_2d(axes=("dcn", "ici")):
     """2-D multi-host mesh: (process, local-device) grid.
 
-    Rows are processes (hosts or slices — collectives across rows ride
-    DCN), columns are each process's local devices (ICI).  Works
+    Rows are processes (hosts — collectives across rows ride the
+    network), columns are each process's local devices (NVLink inside
+    the host).  Works
     single-process too (1 x n_local).  Device order within a row is the
     process's own enumeration order, so data laid out with
     P(("dcn", "ici")) keeps each process's shard on its own devices —

@@ -3,7 +3,7 @@
 The full multi-chip solve pipeline (BASELINE.md north star) in one
 shard_map per GN iteration:
   1. each device assembles normal equations from its EDGE shard
-     (additive) — psum reconstructs the global (H, b) over ICI;
+     (additive) — psum reconstructs the global (H, b) on every device;
   2. each device eliminates the interiors of its BLOCK shard
      (independent dense solves) — psum reduces the separator system;
   3. the small separator solve runs replicated;

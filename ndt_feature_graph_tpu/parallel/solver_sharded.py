@@ -5,7 +5,7 @@ The factor-graph normal equations are a sum of per-edge rank-6
 contributions (graph/optimize.assemble_normal_equations), so the
 linearization — the O(E) part — shards perfectly over the mesh: each
 device assembles its edge shard's (H, b), a `psum` over the mesh axis
-reconstructs the global system on every device (riding ICI), and the
+reconstructs the global system on every device, and the
 small dense solve is computed replicated.  This is the first rung of
 SURVEY.md §7.9's distributed-solve ladder; blocked Schur elimination
 for >10^3-node graphs builds on the same sharded assembly.

@@ -5,12 +5,12 @@ device mesh — the scale-out story for graphs past what one chip holds:
 
   1. EDGE shard: each device linearizes its factors; the O(N)
      node-scattered diagonal/gradient and chain-coupling arrays psum
-     over ICI (never a dense H).
+     across the mesh (never a dense H).
   2. SEGMENT shard: each device runs block-Thomas elimination for its
      segments (independent — embarrassingly parallel); per-segment
      Schur contributions scatter into the (S, S, 3, 3) reduced system
      and psum.
-  3. The reduced separator solve runs replicated on the MXU.
+  3. The reduced separator solve runs replicated on every device.
   4. Back-substitution per owned segment; deltas psum-combine.
 
 Levenberg-Marquardt accept/reject and the compensated (double-single)

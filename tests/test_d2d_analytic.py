@@ -326,3 +326,90 @@ def test_wide_batch_explicit_row_offsets():
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(H1), np.asarray(H2),
                                rtol=1e-5, atol=1e-5)
+
+
+def _random_pairs(key, n, k):
+    """Random pair geometry for _fgh_reduce: moved source cells (n,),
+    gathered targets (n, k), an increment d, and a validity mask."""
+    ks = jax.random.split(key, 7)
+    means = 3.0 * jax.random.normal(ks[0], (n, 2))
+    L = 0.2 * jax.random.normal(ks[1], (n, 2, 2))
+    covs = L @ jnp.swapaxes(L, -1, -2) + 0.02 * jnp.eye(2)
+    mask = jax.random.bernoulli(ks[2], 0.9, (n,))
+    t_means = means[:, None, :] + 0.5 * jax.random.normal(ks[3], (n, k, 2))
+    Lt = 0.2 * jax.random.normal(ks[4], (n, k, 2, 2))
+    t_covs = Lt @ jnp.swapaxes(Lt, -1, -2) + 0.05 * jnp.eye(2)
+    t_valid = jax.random.bernoulli(ks[5], 0.7, (n, k))
+    d = 0.1 * jax.random.normal(ks[6], (3,))
+    moved = ndt_map.CellList(means, covs, mask)
+    return d, moved, t_means, t_covs, t_valid
+
+
+def _per_pair_reference(d, moved, t_means, t_covs, t_valid, m):
+    """Pair by pair: autodiff of one pair's Gaussian-overlap score in
+    the left increment p applied on top of d, summed in float64 over
+    the valid pairs only."""
+    def pair_score(p, x, c, tm, tc):
+        c_, s_ = jnp.cos(p[2]), jnp.sin(p[2])
+        R = jnp.array([[c_, -s_], [s_, c_]])
+        mu = R @ (x - d[:2]) + d[:2] + p[:2] - tm
+        S = R @ c @ R.T + tc
+        q = mu @ jnp.linalg.solve(S, mu)
+        return -m.lfd1 * jnp.exp(-0.5 * m.lfd2 * q)
+
+    p0 = jnp.zeros(3)
+    fgh = jax.jit(lambda *a: (
+        pair_score(p0, *a), jax.grad(pair_score)(p0, *a),
+        jax.hessian(pair_score)(p0, *a),
+    ))
+    ok = np.asarray(t_valid) & np.asarray(moved.mask)[:, None]
+    f, g, H = 0.0, np.zeros(3), np.zeros((3, 3))
+    for i, j in zip(*np.nonzero(ok)):
+        s, gi, Hi = fgh(moved.means[i], moved.covs[i], t_means[i, j],
+                        t_covs[i, j])
+        f += float(s)
+        g += np.asarray(gi, np.float64)
+        H += np.asarray(Hi, np.float64)
+    return f, g, H
+
+
+def test_fgh_reduce_matches_per_pair_reference():
+    """The shared pair-derivative reduction over random pairs equals
+    the pair-by-pair autodiff reference."""
+    args = _random_pairs(jax.random.PRNGKey(0), n=12, k=25)
+    f, g, H = d2d_analytic._fgh_reduce(*args, MATCH)
+    f_ref, g_ref, H_ref = _per_pair_reference(*args, MATCH)
+    np.testing.assert_allclose(float(f), f_ref, rtol=1e-4)
+    np.testing.assert_allclose(
+        np.asarray(g), g_ref, rtol=2e-3, atol=1e-4 * np.abs(g_ref).max()
+    )
+    np.testing.assert_allclose(
+        np.asarray(H), H_ref, rtol=2e-3, atol=1e-4 * np.abs(H_ref).max()
+    )
+
+
+def test_fgh_reduce_padding_is_masked():
+    """Masked pairs contribute nothing, whatever they hold: sizes that
+    fill no block, and garbage in every masked slot."""
+    d, moved, t_means, t_covs, t_valid = _random_pairs(
+        jax.random.PRNGKey(1), n=3, k=7
+    )
+    f, g, H = d2d_analytic._fgh_reduce(
+        d, moved, t_means, t_covs, t_valid, MATCH
+    )
+    ok = t_valid & moved.mask[:, None]
+    junk = jnp.where(ok[..., None], t_means, 1e3)
+    junk_cov = jnp.where(ok[..., None, None], t_covs, 0.0)
+    f2, g2, H2 = d2d_analytic._fgh_reduce(
+        d, moved, junk, junk_cov, t_valid, MATCH
+    )
+    np.testing.assert_array_equal(np.asarray(f2), np.asarray(f))
+    np.testing.assert_array_equal(np.asarray(g2), np.asarray(g))
+    np.testing.assert_array_equal(np.asarray(H2), np.asarray(H))
+    f_ref, g_ref, _ = _per_pair_reference(
+        d, moved, t_means, t_covs, t_valid, MATCH
+    )
+    np.testing.assert_allclose(float(f), f_ref, rtol=1e-4)
+    np.testing.assert_allclose(
+        np.asarray(g), g_ref, rtol=2e-3, atol=1e-4 * np.abs(g_ref).max()
+    )

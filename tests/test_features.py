@@ -141,7 +141,7 @@ def test_ransac_recall_reference_parameterizations():
     flirtlib.cpp:73, startup startup_loc.cpp:181) plus the adaptive
     variant: >= 95% over 20 random scan pairs (randomized worlds,
     range noise, viewpoint offsets) — asserted as recall, not a single
-    seed (VERDICT round-1 item 1)."""
+    seed."""
     from ndt_feature_graph_tpu.io.dataset import random_loop_scenario
 
     variants = {

@@ -1,7 +1,7 @@
 """Device-resident chunked graph driver equivalence: the chunked path
 (fusion/scan_driver.run_graph_chunk via slam.run_sequence_chunked) must
 reproduce the per-scan host loop exactly — same op order, same PRNG
-stream, same splits (VERDICT round-1 item 4)."""
+stream, same splits."""
 
 import jax
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Link-covariance calibration: the Hessian-derived registration
 covariance (d2d.cov_from_hessian — the ONE convention every consumer
-uses, VERDICT r2 weak #5) validated against an empirical Monte-Carlo
+uses) validated against an empirical Monte-Carlo
 covariance from re-registering noise-perturbed scan pairs.  Reference
 contract: NDTMatcherD2D::covariance feeding link cov_3d at
 ndt_feature_graph.cpp:298-330.

@@ -73,7 +73,7 @@ def test_online_loop_closure_reduces_drift():
     err_on = tum.ate_rmse(np.stack(on.node_T), gt_on)
     print("node ATE without/with online LC:", err_off, err_on)
     # Measured 0.865 -> 0.151 m; absolute bound 0.25 m (half a cell)
-    # plus a material relative improvement (VERDICT round-1 item 10).
+    # plus a material relative improvement.
     assert err_on < 0.25, (err_off, err_on)
     assert err_on < err_off * 0.5, (err_off, err_on)
     # The incremental solves must keep the odometry chain consistent.

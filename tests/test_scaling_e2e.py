@@ -3,7 +3,7 @@ nodes (multi-pass loop), and optimize_offline auto-dispatches to the
 exact sparse-direct solver (graph/sparse_direct.py) with distance-gated
 candidates and chunked link proposal — the unbounded-trajectory scaling
 path (SURVEY.md §5), exercised through the orchestrator rather than the
-solver unit test (VERDICT round-1 item 9).
+solver unit test.
 
 The reference's offline CLI would loop O(N^2) pairs sequentially and
 hand iSAM a dense problem (ndt_feature_graph_opt.cpp:91-210); here the
